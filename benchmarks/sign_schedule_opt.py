@@ -1,6 +1,6 @@
 """Offline optimizer for the composite polynomial sign-filter schedules.
 
-Produces the coefficient tables hard-coded in cuadmm_tpu/ops/polyfilter.py.
+Produces the coefficient tables hard-coded in cuadmm_jax/ops/polyfilter.py.
 Method (cf. arXiv:2507.09165 / arXiv:2505.16932; this implementation is
 independent): greedily compose odd degree-5 polynomials
 p(y) = a y + b y^3 + c y^5.
@@ -17,16 +17,16 @@ attained interval is re-measured on a fine grid rather than trusted from
 the LP (this matters -- composite filters amplify any unmodeled overshoot
 catastrophically).
 
-ROBUSTNESS MARGIN (the round-2 TPU divergence): u' = u*(1+mu) with
+ROBUSTNESS MARGIN (a round-2 divergence): u' = u*(1+mu) with
 mu=1e-3, and U must be < u'/(1+mu) -- i.e. the composition must be a
 strict contraction of the invariant interval even when matmul round-off
 perturbs eigenvalues by up to mu relative. The original tables used
 U = 1.2 with the image bound attained *exactly* at the interval edge:
 p(1.2) = 1.2 was a repelling fixed point with slope ~13, so a +1.8e-6
-eigenvalue overshoot (TPU f32 HIGHEST = 6-pass bf16 round-off; CPU FMA
-f32 rounds the same point *down*) amplified ~13x per step and blew the
+eigenvalue overshoot (an f32 accumulation that rounds the boundary point
+*up*; CPU FMA f32 rounds the same point *down*) amplified ~13x per step and blew the
 whole solve up within one projection: 13^8 * 1.8e-6 ~ 1e2 at step 8,
-3.5e9 at step 9 -- the BENCH_r02 failure signature.
+3.5e9 at step 9 -- the round-2 failure signature.
 
 Usage: python benchmarks/sign_schedule_opt.py [l0] [tol] [U] [mu]
 """

@@ -19,9 +19,9 @@ jax.config.update("jax_enable_x64", True)  # default SolverConfig dtype is float
 
 import numpy as np
 
-from cuadmm_tpu import SDPSolver, SolverConfig
-from cuadmm_tpu.models.maxcut import maxcut_sdp, random_graph, round_solution
-from cuadmm_tpu.models.chordal import maxcut_chordal
+from cuadmm_jax import SDPSolver, SolverConfig
+from cuadmm_jax.models.maxcut import maxcut_sdp, random_graph, round_solution
+from cuadmm_jax.models.chordal import maxcut_chordal
 
 
 def main() -> None:

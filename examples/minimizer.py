@@ -20,7 +20,7 @@ jax.config.update("jax_enable_x64", True)  # the shim solves in float64
 
 import numpy as np
 
-from cuadmm_tpu.compat import cuadmm
+from cuadmm_jax.compat import cuadmm
 
 
 def svec_to_full(v: np.ndarray, n: int) -> np.ndarray:
@@ -55,7 +55,7 @@ def main() -> None:
     b = At.T @ x_true_svec
 
     X, y, S, info = cuadmm(
-        12,  # eig_stream_num: signature parity only (no CUDA streams on TPU)
+        12,  # eig_stream_num: signature parity only (XLA schedules the eigs)
         2000,  # max_iter
         1e-5,  # stop_tol
         At,

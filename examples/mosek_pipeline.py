@@ -4,7 +4,7 @@ Python counterpart of the reference's MATLAB pipeline
 (reference: MATLAB/example_mosek.m:1-66), which chains
 MOSEK -> SeDuMi -> SDPT3 -> cuADMM conversions across ~700 lines of
 MATLAB utilities (examples/utils/*.m). Here the whole chain is
-`load_mosek_mat` (cuadmm_tpu/io/mosek.py).
+`load_mosek_mat` (cuadmm_jax/io/mosek.py).
 
 Run: python examples/mosek_pipeline.py [path/to/problem.mat]
 """
@@ -18,8 +18,8 @@ import jax
 
 jax.config.update("jax_enable_x64", True)  # default SolverConfig dtype is float64
 
-from cuadmm_tpu import SDPSolver, SolverConfig
-from cuadmm_tpu.io.mosek import load_mosek_mat
+from cuadmm_jax import SDPSolver, SolverConfig
+from cuadmm_jax.io.mosek import load_mosek_mat
 
 # PushT ships with the reference and solves its 200 demo iterations in
 # ~1 min on CPU (PlanarHand N=1 has con_num ~ 66k -> the CG path, minutes).

@@ -4,10 +4,10 @@ import numpy as np
 import jax
 import pytest
 
-from cuadmm_tpu import Problem, SolverConfig
-from cuadmm_tpu.models.random_sdp import random_certified_sdp
-from cuadmm_tpu.parallel.batch import BatchedSDPSolver
-from cuadmm_tpu.parallel.mesh import make_mesh
+from cuadmm_jax import Problem, SolverConfig
+from cuadmm_jax.models.random_sdp import random_certified_sdp
+from cuadmm_jax.parallel.batch import BatchedSDPSolver
+from cuadmm_jax.parallel.mesh import make_mesh
 
 
 def _family(n_instances, seed=0):
@@ -25,7 +25,7 @@ def _family(n_instances, seed=0):
         )  # same seed -> same A
         # Perturb y* and rank split via a fresh seed but keep A: construct
         # by hand from the SAME A.
-        from cuadmm_tpu.models.random_sdp import _svec
+        from cuadmm_jax.models.random_sdp import _svec
 
         parts_x, parts_s = [], []
         for t, n in blk:
@@ -67,7 +67,7 @@ def test_batched_sharded_over_mesh():
         assert abs(res.pobj - obj) / (1 + abs(obj)) < 1e-4
     # Per-instance parity against independent single solves: the sharded
     # lockstep batch must reproduce the unsharded single-solver iterates.
-    from cuadmm_tpu.solver.driver import SDPSolver
+    from cuadmm_jax.solver.driver import SDPSolver
 
     for i in (0, 5):
         single = SDPSolver(probs[i], cfg).solve(max_iter=6000, stop_tol=1e-6)

@@ -5,8 +5,8 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from cuadmm_tpu import SDPSolver, SolverConfig
-from cuadmm_tpu.models.chordal import (
+from cuadmm_jax import SDPSolver, SolverConfig
+from cuadmm_jax.models.chordal import (
     clique_tree_conversion,
     complete_gram_vectors,
     extract_entries,
@@ -14,7 +14,7 @@ from cuadmm_tpu.models.chordal import (
     min_degree_ordering,
     tree_decomposition,
 )
-from cuadmm_tpu.models.maxcut import cut_value, maxcut_sdp, random_graph
+from cuadmm_jax.models.maxcut import cut_value, maxcut_sdp, random_graph
 
 
 def path_graph(n):

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from cuadmm_tpu.cli import main
-from cuadmm_tpu.io import txt as txtio
-from cuadmm_tpu.models.random_sdp import random_certified_sdp
+from cuadmm_jax.cli import main
+from cuadmm_jax.io import txt as txtio
+from cuadmm_jax.models.random_sdp import random_certified_sdp
 
 
 @pytest.fixture()

@@ -3,10 +3,10 @@
 import numpy as np
 import scipy.sparse as sp
 
-from cuadmm_tpu.compat import cuadmm
-from cuadmm_tpu.models.random_sdp import random_certified_sdp
-from cuadmm_tpu.utils.checkpoint import load_checkpoint, save_checkpoint
-from cuadmm_tpu import SDPSolver, SolverConfig
+from cuadmm_jax.compat import cuadmm
+from cuadmm_jax.models.random_sdp import random_certified_sdp
+from cuadmm_jax.utils.checkpoint import load_checkpoint, save_checkpoint
+from cuadmm_jax import SDPSolver, SolverConfig
 
 
 def test_compat_signature(tmp_path):

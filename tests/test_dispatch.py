@@ -7,7 +7,7 @@ import os
 
 import pytest
 
-from cuadmm_tpu.ops import dispatch
+from cuadmm_jax.ops import dispatch
 
 
 @pytest.fixture

@@ -10,10 +10,10 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from cuadmm_tpu.io.sdpa import load_sdpa
-from cuadmm_tpu.io.sedumi import load_sedumi_mat
-from cuadmm_tpu.io.mosek import load_mosek_mat
-from cuadmm_tpu.problem import Problem
+from cuadmm_jax.io.sdpa import load_sdpa
+from cuadmm_jax.io.sedumi import load_sedumi_mat
+from cuadmm_jax.io.mosek import load_mosek_mat
+from cuadmm_jax.problem import Problem
 
 REF = "/root/reference/examples"
 
@@ -90,8 +90,8 @@ def test_admm_mat_1dc1024_matches_txt_at():
     """1dc.1024's TXT export has no C.txt; the cuADMM-layout .mat archive
     is the complete source. Its At must reproduce the committed At.txt
     bit-for-bit (same svec convention)."""
-    from cuadmm_tpu.io.admm_mat import load_admm_mat
-    from cuadmm_tpu.io.txt import read_coo_matrix
+    from cuadmm_jax.io.admm_mat import load_admm_mat
+    from cuadmm_jax.io.txt import read_coo_matrix
 
     p = load_admm_mat(f"{REF}/plato/MATLAB/1dc.1024.mat")
     assert p.blk == [("s", 1024)]
@@ -108,7 +108,7 @@ def test_quasar_constraints_structure():
     log (quasar-500.log: 756501 constraints, 1515004 At nnz) and a known
     feasible point (X_ij = q q^T for a unit quaternion q) satisfies every
     constraint exactly."""
-    from cuadmm_tpu.models.quasar import load_quasar_txt, quasar_constraints
+    from cuadmm_jax.models.quasar import load_quasar_txt, quasar_constraints
 
     r, c, v, m, n = quasar_constraints(2)
     assert (m, n) == (1 + 20 + 18, 12)

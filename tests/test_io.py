@@ -7,8 +7,8 @@ COO<->CSC round trips; reference: test/io_test.hpp:3-161).
 import numpy as np
 import pytest
 
-from cuadmm_tpu.io import txt as txtio
-from cuadmm_tpu.problem import Problem
+from cuadmm_jax.io import txt as txtio
+from cuadmm_jax.problem import Problem
 
 
 def test_dense_vector_roundtrip(tmp_path):

@@ -5,8 +5,8 @@ import itertools
 import numpy as np
 import pytest
 
-from cuadmm_tpu import SDPSolver, SolverConfig
-from cuadmm_tpu.models.maxcut import (
+from cuadmm_jax import SDPSolver, SolverConfig
+from cuadmm_jax.models.maxcut import (
     cut_value,
     maxcut_sdp,
     random_graph,

@@ -10,11 +10,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from cuadmm_tpu.ops import sparse as sparse_ops
-from cuadmm_tpu.ops import chol as chol_ops
-from cuadmm_tpu.ops.projection import psd_project, xla_eigh, reconstruct_clamped
-from cuadmm_tpu.ops.svec import device_maps
-from cuadmm_tpu.structure import BlockStructure
+from cuadmm_jax.ops import sparse as sparse_ops
+from cuadmm_jax.ops import chol as chol_ops
+from cuadmm_jax.ops.projection import psd_project, xla_eigh, reconstruct_clamped
+from cuadmm_jax.ops.svec import device_maps
+from cuadmm_jax.structure import BlockStructure
 
 
 def random_sparse_at(rng, vec_len, con_num, density=0.3):
@@ -201,11 +201,11 @@ def test_cg_block_jacobi_and_tol():
 def test_cg_fsai_preconditioner():
     """FSAI CG preconditioner (ops/fsai.py): G is lower-triangular, the
     ELL tables reproduce G^T G r exactly, and the preconditioned solve
-    reaches the same residual as Jacobi-CG. The TPU-native analog of the
+    reaches the same residual as Jacobi-CG. The device-resident analog of the
     reference's CHOLMOD triangular solves (cholesky_cpu.h:62-155)."""
     import scipy.sparse as sp
 
-    from cuadmm_tpu.ops.fsai import build_fsai, fsai_tables
+    from cuadmm_jax.ops.fsai import build_fsai, fsai_tables
 
     rng = np.random.default_rng(11)
     vec_len, con = 400, 96
@@ -244,7 +244,7 @@ def test_fsai_zero_rows():
     diagonal entry, not a 1e30 spike (ADVICE r3 analog for FSAI)."""
     import scipy.sparse as sp
 
-    from cuadmm_tpu.ops.fsai import build_fsai
+    from cuadmm_jax.ops.fsai import build_fsai
 
     n = 8
     d = np.ones(n)
@@ -314,7 +314,7 @@ def test_precond_real_pusht_aat_residual():
     path = "/root/reference/examples/SPOT/data/TXT/PushT_N=10_MOMENT"
     if not os.path.isdir(path):
         pytest.skip("reference data unavailable")
-    from cuadmm_tpu.problem import Problem
+    from cuadmm_jax.problem import Problem
 
     prob = Problem.from_txt(path)
     # Row-normalize exactly as the driver does (src/solver.cu:79-80).
@@ -345,7 +345,7 @@ def test_blocked_tri_inv():
     the identity at sizes that exercise multi-block recursion and padding."""
     import jax.numpy as jnp
 
-    from cuadmm_tpu.ops.chol import _tri_inv
+    from cuadmm_jax.ops.chol import _tri_inv
 
     rng = np.random.default_rng(5)
     for n, block in [(500, 64), (300, 128), (64, 2048)]:
@@ -363,8 +363,8 @@ def test_compact_aat_matvec():
     import jax.numpy as jnp
     import scipy.sparse as sp
 
-    from cuadmm_tpu.ops.sparse import aat_matvec, build_sparse_a_pool, spmv_a, spmv_at
-    from cuadmm_tpu.structure import BlockStructure
+    from cuadmm_jax.ops.sparse import aat_matvec, build_sparse_a_pool, spmv_a, spmv_at
+    from cuadmm_jax.structure import BlockStructure
 
     rng = np.random.default_rng(7)
     blk = [("s", 5)] * 40 + [("s", 13)] * 10 + [("u", 7)]
@@ -384,21 +384,3 @@ def test_compact_aat_matvec():
     np.testing.assert_allclose(got, composed, atol=1e-12)
     A = sp.csr_matrix((vals, (cols_con, rows_svec)), shape=(con, st.vec_len))
     np.testing.assert_allclose(got, A @ (A.T @ y), atol=1e-10)
-
-
-def test_fused_precond_apply_matches_dot_pair():
-    """Pallas fused y = M^T (M r) (ops/precond_apply.py) against the plain
-    dot pair, on padded and non-lane-aligned sizes (interpret mode)."""
-    from cuadmm_tpu.ops.precond_apply import apply_padded, pad_factor
-
-    rng = np.random.default_rng(3)
-    for n in (128, 130, 517):
-        L = np.tril(rng.standard_normal((n, n))) + n * np.eye(n)
-        M = np.linalg.inv(L).astype(np.float32)
-        r = rng.standard_normal(n).astype(np.float32)
-        ref = M.T @ (M @ r)
-        y = np.asarray(
-            apply_padded(pad_factor(jnp.asarray(M)), jnp.asarray(r), interpret=True)
-        )
-        assert y.shape == (n,)
-        assert np.linalg.norm(y - ref) / np.linalg.norm(ref) < 1e-5

@@ -12,12 +12,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from cuadmm_tpu import SDPSolver, SolverConfig
-from cuadmm_tpu.models.random_sdp import random_certified_sdp
-from cuadmm_tpu.ops.projection import psd_project
-from cuadmm_tpu.ops.svec import device_maps
-from cuadmm_tpu.parallel.mesh import make_mesh, shard_blocks
-from cuadmm_tpu.structure import BlockStructure
+from cuadmm_jax import SDPSolver, SolverConfig
+from cuadmm_jax.models.random_sdp import random_certified_sdp
+from cuadmm_jax.ops.projection import psd_project
+from cuadmm_jax.ops.svec import device_maps
+from cuadmm_jax.parallel.mesh import make_mesh, shard_blocks
+from cuadmm_jax.structure import BlockStructure
 
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs 8 (virtual) devices"
@@ -106,12 +106,12 @@ def test_sharded_tri_solve_matches_dense():
     import scipy.sparse as sp
 
     from jax.sharding import Mesh
-    from cuadmm_tpu.ops.tri_stream import (
+    from cuadmm_jax.ops.tri_stream import (
         make_layout,
         packed_cholesky,
         scatter_packed_aat,
     )
-    from cuadmm_tpu.parallel.tri_shard import (
+    from cuadmm_jax.parallel.tri_shard import (
         shard_factor,
         sharded_tri_solve,
         square_tiles_from_packed,
@@ -157,7 +157,7 @@ def test_sharded_cholesky_matches_dense():
     solve vs a dense host solve (parallel/tri_shard.py, round 5)."""
     import scipy.sparse as sp
 
-    from cuadmm_tpu.parallel import tri_shard as tsd
+    from cuadmm_jax.parallel import tri_shard as tsd
 
     mesh8 = make_mesh(8)
     rng = np.random.default_rng(0)
@@ -181,8 +181,8 @@ def test_sharded_cholesky_matches_dense():
 def test_sharded_normal_solver_in_full_solve():
     """normal_solver='sharded' inside the full solver loop converges to a
     certified optimum on the virtual 8-device mesh."""
-    from cuadmm_tpu import SDPSolver, SolverConfig
-    from cuadmm_tpu.models.random_sdp import random_certified_sdp
+    from cuadmm_jax import SDPSolver, SolverConfig
+    from cuadmm_jax.models.random_sdp import random_certified_sdp
 
     mesh8 = make_mesh(8)
     prob, _, _, _, opt = random_certified_sdp(

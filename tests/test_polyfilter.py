@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from cuadmm_tpu.ops.polyfilter import (
+from cuadmm_jax.ops.polyfilter import (
     SIGN_SCHEDULE_F32,
     SIGN_SCHEDULE_F64,
     matrix_sign,
@@ -114,8 +114,8 @@ def test_poly_projection_psd_blockdiag_packing():
 
 def test_solver_with_poly_projection():
     """End-to-end: certified random SDP converges with projection='poly'."""
-    from cuadmm_tpu import SDPSolver, SolverConfig
-    from cuadmm_tpu.models.random_sdp import random_certified_sdp
+    from cuadmm_jax import SDPSolver, SolverConfig
+    from cuadmm_jax.models.random_sdp import random_certified_sdp
 
     blk = [("s", 6), ("s", 4), ("s", 5)]
     prob, *_, pobj = random_certified_sdp(blk, con_num=12, seed=13)

@@ -10,8 +10,8 @@ reference: test/duo_solver_test.hpp:6-145).
 import numpy as np
 import pytest
 
-from cuadmm_tpu import Problem, SDPSolver, SolverConfig
-from cuadmm_tpu.models.random_sdp import random_certified_sdp
+from cuadmm_jax import Problem, SDPSolver, SolverConfig
+from cuadmm_jax.models.random_sdp import random_certified_sdp
 
 TRUSS5 = "/root/reference/examples/dimacs/data/TXT/truss5"
 
@@ -196,8 +196,8 @@ def test_solve_escalated_f32_then_f64_tail():
     below the f32 certification floor warm-continues in f64 and reaches
     it (the rose13 pattern: reference runs end-to-end f64,
     src/solver.cu; our ladder does only the tail there)."""
-    from cuadmm_tpu import SolverConfig, solve_escalated
-    from cuadmm_tpu.models.random_sdp import random_certified_sdp
+    from cuadmm_jax import SolverConfig, solve_escalated
+    from cuadmm_jax.models.random_sdp import random_certified_sdp
 
     prob, _, _, _, opt = random_certified_sdp(
         [("s", 6)] * 8, con_num=200, seed=3

@@ -9,8 +9,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from cuadmm_tpu.structure import BlockStructure, SQRT2, round_block_size
-from cuadmm_tpu.ops.svec import blocks_to_svec, device_maps, svec_to_blocks
+from cuadmm_jax.structure import BlockStructure, SQRT2, round_block_size
+from cuadmm_jax.ops.svec import blocks_to_svec, device_maps, svec_to_blocks
 
 
 def dense_blocks_from_svec(blk, x):
@@ -129,7 +129,7 @@ def test_mixed_sizes_bucketing():
 
 def test_packed_roundtrip_and_projection():
     """Diagonal packing: svec round-trip exact, projection equals unpacked."""
-    from cuadmm_tpu.ops.projection import psd_project
+    from cuadmm_jax.ops.projection import psd_project
 
     blk = [("s", n) for n in [3, 5, 2, 7, 4, 4, 6, 2, 2, 3]] + [("u", 3), ("s", 1)]
     st0 = BlockStructure(blk, rounding="pow2")
@@ -159,8 +159,8 @@ def test_packed_heteronorm_f32_accuracy():
     with norm 1e-5 packed next to a norm-1 block inherits the big block's
     absolute error floor (~l0 * s_super = 1e-4 for the poly filter)."""
     import jax
-    from cuadmm_tpu.ops.projection import psd_project_pool
-    from cuadmm_tpu.ops.svec import pool_from_svec, svec_from_pool
+    from cuadmm_jax.ops.projection import psd_project_pool
+    from cuadmm_jax.ops.svec import pool_from_svec, svec_from_pool
 
     rng = np.random.default_rng(3)
     blk = [("s", 5), ("s", 5)]

@@ -1,8 +1,9 @@
-"""Packed block-triangular Cholesky + streaming solves (ops/tri_stream.py).
+"""Packed/banded block-triangular Cholesky + sweeps (ops/tri_stream.py).
 
 The large-con_num normal-equation path (the role CHOLMOD plays in the
-reference, cholesky_cpu.h:62-155). CPU tests run the Pallas kernels in
-interpret mode; the real-Mosaic compile gate lives in tests_tpu/.
+reference, cholesky_cpu.h:62-155). The sweeps are plain XLA, so these
+tests run them as compiled for the CPU against host f64 solves; the same
+code as compiled for the GPU is checked by tests/test_gpu.py.
 """
 
 import numpy as np
@@ -12,13 +13,17 @@ import scipy.sparse as sp
 import jax
 import jax.numpy as jnp
 
-from cuadmm_tpu.ops.tri_stream import (
+from cuadmm_jax.ops.tri_stream import (
+    band_cholesky,
+    band_solve,
+    make_band_layout,
     make_layout,
     packed_cholesky,
     packed_solve,
-    probe,
+    scatter_band_aat,
     scatter_packed_aat,
     tid,
+    tid_band,
 )
 
 
@@ -55,8 +60,10 @@ def test_packed_cholesky_matches_dense(n, block):
     assert np.linalg.norm(np.tril(L) - Lref) / np.linalg.norm(Lref) < 1e-10
 
 
-def test_packed_solve_interpret():
-    n, block = 300, 64
+@pytest.mark.parametrize("n,block", [(300, 64), (257, 128), (1000, 128), (64, 64)])
+def test_packed_solve_interpret(n, block):
+    """Device factor + sweeps against a host f64 solve, at sizes that are
+    and are not multiples of the block."""
     aat = _random_aat(n)
     lay = make_layout(n, block)
     dm = float(aat.diagonal().mean())
@@ -68,15 +75,34 @@ def test_packed_solve_interpret():
     fac = packed_cholesky(tiles, lay)
     rng = np.random.default_rng(0)
     r = rng.standard_normal(n)
-    y = packed_solve(fac, jnp.asarray(r), lay, interpret=True)
+    y = packed_solve(fac, jnp.asarray(r), lay)
     ref = np.linalg.solve(
         np.asarray(aat.todense()) + 1e-6 * max(dm, 1.0) * np.eye(n), r
     )
     assert np.linalg.norm(np.asarray(y) - ref) / np.linalg.norm(ref) < 1e-10
 
 
-def test_probe_interpret():
-    probe(interpret=True)
+@pytest.mark.parametrize("n,block", [(256, 128), (200, 128), (390, 128)])
+def test_probe_interpret(n, block):
+    """Sweeps over a hand-built packed factor (host Cholesky, inverted
+    diagonal tiles, identity padding) against a host f64 solve: exercises
+    the sweeps without the device factorization."""
+    lay = make_layout(n, block)
+    rng = np.random.default_rng(0)
+    a = rng.standard_normal((n, n))
+    p = a @ a.T + n * np.eye(n)
+    pp = np.eye(lay.n_pad)
+    pp[:n, :n] = p
+    l = np.linalg.cholesky(pp)
+    tiles = np.zeros((lay.T, block, block))
+    for i in range(lay.nb):
+        for j in range(i + 1):
+            blk = l[i * block : (i + 1) * block, j * block : (j + 1) * block]
+            tiles[tid(i, j)] = np.linalg.inv(blk) if i == j else blk
+    r = rng.standard_normal(n)
+    y = packed_solve(jnp.asarray(tiles), jnp.asarray(r), lay)
+    ref = np.linalg.solve(p, r)
+    assert np.linalg.norm(np.asarray(y) - ref) / np.linalg.norm(ref) < 1e-12
 
 
 def test_split_mode_block_diagonal():
@@ -84,8 +110,8 @@ def test_split_mode_block_diagonal():
     a pure-diagonal tail -> auto-detected 'split' mode with an exact
     prefix factor (reference counterpart: CHOLMOD handles the same system
     generically, cholesky_cpu.h:62-155)."""
-    from cuadmm_tpu.ops import chol as chol_ops
-    from cuadmm_tpu.ops import sparse as sparse_ops
+    from cuadmm_jax.ops import chol as chol_ops
+    from cuadmm_jax.ops import sparse as sparse_ops
     import jax.numpy as jnp
 
     rng = np.random.default_rng(3)
@@ -113,8 +139,8 @@ def test_split_mode_diagonal_and_permuted():
     """Generalized split: (a) fully-diagonal AA^T (ros_2000/rose13/cnhil10
     class) solves with no dense factor at all; (b) coupled rows scattered
     through the row order are gathered by the stored permutation."""
-    from cuadmm_tpu.ops import chol as chol_ops
-    from cuadmm_tpu.ops import sparse as sparse_ops
+    from cuadmm_jax.ops import chol as chol_ops
+    from cuadmm_jax.ops import sparse as sparse_ops
     import jax.numpy as jnp
 
     rng = np.random.default_rng(7)
@@ -157,8 +183,8 @@ def test_split_mode_diagonal_and_permuted():
 def test_packed_mode_normal_solver():
     """build_normal_solver mode='packed': consistent-rhs solve with
     refinement reaches f64-refinement accuracy on a singular AA^T."""
-    from cuadmm_tpu.ops import chol as chol_ops
-    from cuadmm_tpu.ops import sparse as sparse_ops
+    from cuadmm_jax.ops import chol as chol_ops
+    from cuadmm_jax.ops import sparse as sparse_ops
 
     rng = np.random.default_rng(5)
     vec_len, con = 300, 120
@@ -200,19 +226,12 @@ def _chain_A(n, vec_len_per=6, coupling=30, seed=3):
     ), vec_len
 
 
-def test_band_cholesky_and_solve_match_dense():
-    from cuadmm_tpu.ops.tri_stream import (
-        band_cholesky,
-        band_solve,
-        make_band_layout,
-        scatter_band_aat,
-        tid_band,
-    )
-
-    A, _ = _chain_A(500)
+@pytest.mark.parametrize("n,block", [(500, 64), (333, 64), (256, 32)])
+def test_band_cholesky_and_solve_match_dense(n, block):
+    A, _ = _chain_A(n)
     aat = (A @ A.T).tocoo()
     bw = int(np.abs(aat.row - aat.col).max())
-    lay = make_band_layout(500, bw, block=64)
+    lay = make_band_layout(n, bw, block=block)
     dm = float((A @ A.T).diagonal().mean())
     tiles = scatter_band_aat(
         aat.row.astype(np.int64), aat.col.astype(np.int64), aat.data,
@@ -220,25 +239,54 @@ def test_band_cholesky_and_solve_match_dense():
     )
     tiles = band_cholesky(tiles, lay)
     rng = np.random.default_rng(0)
-    r = rng.standard_normal(500)
-    y = np.asarray(band_solve(tiles, jnp.asarray(r), lay, interpret=True))
-    dense = (A @ A.T).todense() + 1e-8 * max(dm, 1.0) * np.eye(500)
+    r = rng.standard_normal(n)
+    y = np.asarray(band_solve(tiles, jnp.asarray(r), lay))
+    dense = (A @ A.T).todense() + 1e-8 * max(dm, 1.0) * np.eye(n)
     ref = np.linalg.solve(dense, r)
     assert np.linalg.norm(y - ref) / np.linalg.norm(ref) < 1e-7
 
 
-def test_probe_band_interpret():
-    from cuadmm_tpu.ops.tri_stream import probe_band
-
-    probe_band(interpret=True)
+@pytest.mark.parametrize("n,block,nbw", [(512, 128, 1), (450, 128, 1), (700, 64, 3)])
+def test_probe_band_interpret(n, block, nbw):
+    """Sweeps over a hand-built band factor (exactly banded SPD matrix,
+    host Cholesky, inverted diagonal tiles): the first/off-diagonal/
+    diagonal paths and the unused top-left slots all run."""
+    rng = np.random.default_rng(0)
+    lay = make_band_layout(n, bw=nbw * block, block=block)
+    assert lay.nbw == nbw
+    npad = lay.n_pad
+    a = np.zeros((npad, npad))
+    for i in range(lay.nb):
+        for j in range(max(0, i - nbw), i + 1):
+            a[i * block : (i + 1) * block, j * block : (j + 1) * block] = (
+                rng.standard_normal((block, block))
+            )
+    p = a @ a.T + npad * np.eye(npad)
+    for i in range(lay.nb):
+        for j in range(lay.nb):
+            if abs(i - j) > nbw:
+                p[i * block : (i + 1) * block, j * block : (j + 1) * block] = 0.0
+    p[n:, :] = 0.0
+    p[:, n:] = 0.0
+    p[n:, n:] = np.eye(npad - n)
+    l = np.linalg.cholesky(p)
+    tiles = np.zeros((lay.T + 1, block, block))
+    for i in range(lay.nb):
+        for j in range(max(0, i - nbw), i + 1):
+            blk = l[i * block : (i + 1) * block, j * block : (j + 1) * block]
+            tiles[tid_band(i, j, lay)] = np.linalg.inv(blk) if i == j else blk
+    r = rng.standard_normal(n)
+    y = band_solve(jnp.asarray(tiles), jnp.asarray(r), lay)
+    ref = np.linalg.solve(p[:n, :n], r)
+    assert np.linalg.norm(np.asarray(y) - ref) / np.linalg.norm(ref) < 1e-12
 
 
 @pytest.mark.parametrize("shuffle", [False, True])
 def test_banded_mode_normal_solver(shuffle):
     """mode='banded': refinement accuracy on a chain AA^T; with the rows
     shuffled the RCM permutation must recover the banded ordering."""
-    from cuadmm_tpu.ops import chol as chol_ops
-    from cuadmm_tpu.ops import sparse as sparse_ops
+    from cuadmm_jax.ops import chol as chol_ops
+    from cuadmm_jax.ops import sparse as sparse_ops
 
     rng = np.random.default_rng(7)
     A, vec_len = _chain_A(400)
